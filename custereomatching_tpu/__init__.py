@@ -1,13 +1,13 @@
-"""custereomatching_tpu — a TPU-native stereo-matching engine.
+"""custereomatching_tpu — a differentiable ZNCC stereo-matching engine.
 
 A from-scratch JAX / XLA / Pallas re-design of the capabilities of the
 CUDA reference ``lzhnb/CuStereoMatching``: a differentiable ZNCC stereo
-cost volume with analytic backward, a fused disparity-extraction head,
-batched and mesh-sharded execution, and a benchmark harness.
+cost volume with analytic backward, a fused volume-free disparity kernel
+for the GPU, batched and mesh-sharded execution, and a benchmark harness.
 
 Public API parity with the reference package (custma/__init__.py:1-6):
-``stereo_matching``, ``Timer``, ``__version__`` — plus the TPU-first
-extensions (banded volumes, disparity head, sharded pipeline).
+``stereo_matching``, ``Timer``, ``__version__`` — plus the extensions
+(banded volumes, disparity head, sharded pipeline).
 """
 
 from custereomatching_tpu.config import MeshConfig, StereoConfig

@@ -37,22 +37,24 @@ class StereoConfig:
         (reference: custma/src/stereo_matching_kernel.cu:4,71).
       grad_projector: if True the model layer routes through
         :func:`..ops.zncc.stereo_matching_with_proj_grad` so BOTH images
-        receive gradients (XLA autodiff of the moments form; the Pallas
-        backward is camera-only by design). The reference never implemented
-        a projector gradient (its backward returns None, reference:
-        custma/stereo_matching_wrapper.py:33); camera-only is therefore
-        the parity default.
-      precision: "highest" forces fp32 MXU accumulation for parity with the
-        reference's fp32 CUDA accumulators; "default" permits bf16 passes.
-      backend: which forward implementation the model layer uses.
-        "pallas" — the hand-written TPU kernels (banded mode AND, since
-        round 3, the all-pairs mode via the MXU im2col kernel, which
-        itself falls back to XLA at widths whose [hr, W, W] output
-        block cannot fit VMEM);
-        "xla" — the fused XLA moments formulation;
-        "pallas_interpret" — the kernels under the Pallas interpreter
-        (CPU testing / sanitizer mode, survey §5.2);
-        "auto" — pallas on TPU, xla otherwise.
+        receive gradients (XLA autodiff of the moments form).  The
+        reference never implemented a projector gradient (its backward
+        returns None, reference: custma/stereo_matching_wrapper.py:33);
+        camera-only is therefore the parity default.
+      precision: "highest" forces true float32 contractions (on a GPU the
+        default would be TF32) for parity with the reference's fp32 CUDA
+        accumulators, in the XLA ops and in the fused kernel's window
+        sums; "default" lets XLA choose, and the fused kernel sums its
+        windows in one TF32 pass.
+      backend: how :meth:`..models.StereoMatcher.disparity_maps` runs.
+        "pallas" — the fused volume-free kernel compiled for the GPU
+        (:mod:`..ops.fused`, Pallas through Triton);
+        "pallas_interpret" — the same kernel under the Pallas
+        interpreter, on any platform (CPU testing);
+        "xla" — the volume op followed by the XLA disparity head;
+        "auto" — "pallas" on a GPU, "xla" otherwise.
+        Every other path (volumes, gradients, training) is the XLA op of
+        :mod:`..ops.zncc` whatever the backend.
     """
 
     kernel_size: int = 15
@@ -63,13 +65,6 @@ class StereoConfig:
     grad_projector: bool = False
     precision: str = "highest"
     backend: str = "auto"
-    # Fused-pipeline kernel tile (block_rows, block_disparities).  None =
-    # the KITTI-tuned default; use ops.tuning.autotune_pipeline_blocks to
-    # pick per-shape tiles on the live device.
-    pipeline_blocks: Optional[Tuple[int, int]] = None
-    # Trainable-backward row tile.  None = the KITTI-tuned default; use
-    # ops.tuning.autotune_trainable_bwd_blocks for per-shape values.
-    trainable_bwd_block_rows: Optional[int] = None
 
     def __post_init__(self):
         if self.kernel_size < 1 or self.kernel_size % 2 != 1:
@@ -82,31 +77,27 @@ class StereoConfig:
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.backend not in ("auto", "xla", "pallas", "pallas_interpret"):
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.pipeline_blocks is not None:
-            pb = tuple(self.pipeline_blocks)
-            if (len(pb) != 2 or not all(isinstance(v, int) and v > 0
-                                        for v in pb)):
-                raise ValueError(
-                    f"pipeline_blocks must be two positive ints, got "
-                    f"{self.pipeline_blocks!r}")
-            object.__setattr__(self, "pipeline_blocks", pb)
-        bb = self.trainable_bwd_block_rows
-        if bb is not None and (not isinstance(bb, int) or bb <= 0):
-            raise ValueError(
-                f"trainable_bwd_block_rows must be None or a positive "
-                f"int, got {bb!r}")
 
     def resolved_backend(self) -> str:
-        """Resolve "auto" to a concrete backend for the current platform."""
-        if self.backend != "auto":
+        """Resolve "auto" to a concrete backend for the current platform.
+
+        An explicit "pallas" needs a GPU: elsewhere it raises rather than
+        quietly interpreting the kernel.
+        """
+        if self.backend in ("xla", "pallas_interpret"):
             return self.backend
         import jax  # local: config must stay importable without device init
 
-        try:
-            platform = jax.devices()[0].platform
-        except Exception:
-            return "xla"
-        return "pallas" if platform == "tpu" else "xla"
+        platform = jax.devices()[0].platform
+        if self.backend == "auto":
+            return "pallas" if platform == "gpu" else "xla"
+        if platform != "gpu":
+            raise ValueError(
+                f'backend="pallas" compiles the fused kernel for a GPU, but '
+                f'the default device is {platform!r}; use '
+                f'backend="pallas_interpret" to run it under the Pallas '
+                f'interpreter, or "xla"')
+        return "pallas"
 
     @property
     def pad(self) -> int:
@@ -125,8 +116,8 @@ class MeshConfig:
     """Device-mesh layout for the sharded pipeline.
 
     The reference is single-GPU with no distributed layer (survey §2.4);
-    this is new, TPU-first design: frames shard over ``data``; image rows
-    shard over ``space`` with a halo exchange of ``kernel_size//2`` rows.
+    frames shard over ``data``; image rows shard over ``space`` with a
+    halo exchange of ``kernel_size//2`` rows.
     """
 
     data: int = 1

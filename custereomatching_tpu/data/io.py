@@ -57,6 +57,22 @@ def load_image_gray(path: str, *, channel: Optional[int] = 0) -> np.ndarray:
     return arr.astype(np.float32) / 255.0
 
 
+def png_decoder() -> Optional[str]:
+    """The PNG decoder :func:`load_image_gray` uses: "native", "cv2",
+    "PIL", or None when none is available."""
+    from custereomatching_tpu.native import native_available
+
+    if native_available():
+        return "native"
+    for name in ("cv2", "PIL"):
+        try:
+            __import__(name)
+            return name
+        except ImportError:
+            pass
+    return None
+
+
 def load_stereo_pair_npy(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """Load a stereo pair from a ``.npy``/``.npz`` file.
 

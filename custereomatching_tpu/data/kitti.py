@@ -3,7 +3,7 @@
 The reference consumes real captures but ships no loader (its verify
 script hardcodes two PNG paths that are absent from the repo,
 reference: examples/verify.py:137-142, .gitignore:10); this module makes
-the framework's "KITTI pairs" workload (BASELINE.json configs) runnable
+the framework's "KITTI pairs" workload runnable
 on the actual benchmark data when a KITTI directory is present, and on
 the tiny checked-in KITTI-format fixture otherwise
 (tests/data/kitti_fixture).

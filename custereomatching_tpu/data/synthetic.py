@@ -129,7 +129,7 @@ def make_video_batch(
     d_max: float = 12.0, seed: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """A batch of frames with a drifting disparity plane — the
-    keyframe-depth video workload (BASELINE config 4).
+    keyframe-depth video workload.
 
     Returns ``(cameras [B,H,W], projectors [B,H,W], disparities [B,H,W])``.
     """

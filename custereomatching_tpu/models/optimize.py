@@ -53,19 +53,11 @@ def disparity_loss(model: StereoMatcher, camera: jax.Array,
                    projector: jax.Array, target_disparity: jax.Array,
                    mesh: Optional[Mesh] = None) -> jax.Array:
     """Mean-squared error of the soft disparity against a target map."""
-    banded = model.config.num_disparities is not None
-    if (mesh is None and banded
-            and not model.config.grad_projector
-            and model.config.resolved_backend().startswith("pallas")):
-        # Fused trainable pipeline: no cost volume (or its cotangent) in
-        # HBM, ~2x faster per step than the volume path on TPU.
-        d = model.trainable_disparity_maps(camera, projector)
+    if mesh is None:
+        cv = model.cost_volume(camera, projector)
     else:
-        if mesh is None:
-            cv = model.cost_volume(camera, projector)
-        else:
-            cv = model.sharded_cost_volume(camera, projector, mesh)
-        d = model.disparity(cv)
+        cv = model.sharded_cost_volume(camera, projector, mesh)
+    d = model.disparity(cv)
     err = d.soft_disparity - target_disparity
     return jnp.mean(err * err)
 

@@ -5,9 +5,10 @@ low resolution over the full disparity range, then refine at full
 resolution over a narrow residual band around the upsampled coarse
 estimate.  For KITTI-scale D this cuts the matching work by roughly
 ``downsample²`` on the coarse level and ``(2·residual+1)/(D+1)`` on the
-fine level — an order of magnitude at D=192 — while reusing the fused
-Pallas pipeline unchanged at both levels (the residual search is just a
-banded match against a *per-pixel warped* projector).
+fine level — an order of magnitude at D=192 — while reusing
+:meth:`StereoMatcher.disparity_maps` unchanged at both levels (the
+residual search is just a banded match against a *per-pixel warped*
+projector).
 
 Approximation note: the fine-level ZNCC windows straddle pixels with
 different warp shifts, so near disparity discontinuities the residual
@@ -32,7 +33,7 @@ from jax import lax
 
 from custereomatching_tpu.config import StereoConfig
 from custereomatching_tpu.models.stereo import StereoMatcher
-from custereomatching_tpu.ops.pallas_pipeline import PipelineMaps
+from custereomatching_tpu.ops.disparity import PipelineMaps
 
 
 def _avg_pool(img: jax.Array, f: int) -> jax.Array:
@@ -56,10 +57,9 @@ def _select_shifted(src: jax.Array, k_map: jax.Array, lo: int,
     in ``[lo, hi]``, zero where the source column is out of view.
 
     Evaluated as a where-select over the ``hi - lo + 1`` statically
-    shifted copies of ``src`` — O((hi-lo)·H·W) vector ops, which on TPU
-    beats a dynamic gather by an order of magnitude (XLA lane gathers
-    measure ~4.5 ms for a [375, 1242] map on a v5e; this form fuses into
-    a single elementwise pass).
+    shifted copies of ``src`` — O((hi-lo)·H·W) elementwise ops that XLA
+    fuses into one pass.  Whether a gather is faster on a GPU is not
+    measured yet.
     """
     H, W = src.shape
     pl_, pr = max(hi, 0), max(-lo, 0)

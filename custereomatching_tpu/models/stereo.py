@@ -15,69 +15,19 @@ import functools
 from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh
 
 from custereomatching_tpu.config import StereoConfig
-from custereomatching_tpu.ops.disparity import DisparityResult, extract_disparity
-from custereomatching_tpu.ops.pallas_pipeline import (
+from custereomatching_tpu.ops.disparity import (
+    DisparityResult,
     PipelineMaps,
-    pallas_stereo_pipeline,
-    stereo_pipeline_trainable,
+    extract_disparity,
 )
-from custereomatching_tpu.ops.pallas_zncc import stereo_matching_pallas
+from custereomatching_tpu.ops.fused import fused_disparity_maps
 from custereomatching_tpu.ops.zncc import (
     _stereo_matching,
     stereo_matching_with_proj_grad,
 )
-from custereomatching_tpu.parallel.sharded import sharded_cost_volume
-
-
-def _stack_gap(kernel_size: int) -> int:
-    """Zero rows needed between stacked frames.
-
-    One half-window (p rows, shared by both neighbors) covers the ZNCC
-    window reach — plus the cancel taps of the subtractive windowed sum
-    (ops/pallas_zncc.py::_win_sum reads ``m−k`` rows beyond the window
-    when ``box_k = box_{2^⌈log₂k⌉} − extra taps`` is cheaper; those taps
-    cancel exactly only over zeros, and bit-exactness demands they see
-    the same zeros a single-frame run pads with)."""
-    p = kernel_size // 2
-    m = 1 << kernel_size.bit_length()
-    deficit = m - kernel_size
-    extra = (deficit
-             if 0 < deficit < bin(kernel_size).count("1") - 1 else 0)
-    return p + extra
-
-
-def _run_stacked(one_fn, camera: jax.Array, projector: jax.Array,
-                 kernel_size: int):
-    """Run a single-pair map pipeline over a batch in ONE kernel launch.
-
-    Frames are stacked along H with a ``_stack_gap(k)`` zero-row gap
-    between them.  Under the zero-padding window convention (reference
-    ``query_ij``, custma/src/stereo_matching_kernel.cu:6-12) one
-    half-window of shared zeros satisfies BOTH neighbors: frame i's
-    bottom windows and frame i+1's top windows each reach p rows into
-    the same gap and read zeros, exactly as if each frame ran alone; the
-    gap rows' outputs are sliced away.  Versus ``lax.map`` this trades
-    ~p/(H+p) extra rows of compute (~2% at KITTI scale) for B−1 fewer
-    kernel dispatches and no XLA loop glue.
-
-    Gradients are exact too: un-stacking is a pad/reshape whose transpose
-    scatters zeros into the gap rows, satisfying the zero-cotangent
-    contract of the fused backward.
-    """
-    B, H, W = camera.shape
-    gap = _stack_gap(kernel_size)
-    hs = H + gap
-
-    def stack(x):
-        return jnp.pad(x, ((0, 0), (0, gap), (0, 0))).reshape(B * hs, W)
-
-    maps = one_fn(stack(camera), stack(projector))
-    return jax.tree_util.tree_map(
-        lambda m: m.reshape(B, hs, W)[:, :H], maps)
 
 
 class StereoOutput(NamedTuple):
@@ -120,50 +70,20 @@ class StereoMatcher:
         """ZNCC cost volume for one ``[H, W]`` pair.
 
         With ``config.grad_projector=True`` the op is differentiable in
-        BOTH images: on a Pallas backend both gradients run hand-written
-        closed-form kernels (the projector backward is the half the
-        reference never implemented, custma/stereo_matching_wrapper.py:33);
-        the XLA backend uses autodiff of the moments-form forward.
+        BOTH images (autodiff of the moments-form forward; the projector
+        gradient is the half the reference never implemented,
+        custma/stereo_matching_wrapper.py:33).
         """
         c = self.config
-        backend = c.resolved_backend()
-        if c.grad_projector:
-            if backend.startswith("pallas") and c.num_disparities is not None:
-                return stereo_matching_pallas(
-                    camera, projector, c.num_disparities, c.kernel_size,
-                    c.epsilon, backend == "pallas_interpret",
-                    grad_projector=True)
-            return stereo_matching_with_proj_grad(
-                camera, projector, c.num_disparities, c.kernel_size,
-                c.epsilon, c.precision)
-        if backend.startswith("pallas"):
-            if c.num_disparities is None:
-                from custereomatching_tpu.ops.pallas_allpairs import (
-                    stereo_matching_pallas_allpairs,
-                )
-                return stereo_matching_pallas_allpairs(
-                    camera, projector, c.kernel_size, c.epsilon,
-                    backend == "pallas_interpret", c.precision)
-            return stereo_matching_pallas(
-                camera, projector, c.num_disparities, c.kernel_size,
-                c.epsilon, backend == "pallas_interpret")
-        return _stereo_matching(camera, projector, c.num_disparities,
-                                c.kernel_size, c.epsilon, c.precision)
+        op = (stereo_matching_with_proj_grad if c.grad_projector
+              else _stereo_matching)
+        return op(camera, projector, c.num_disparities, c.kernel_size,
+                  c.epsilon, c.precision)
 
     # -- batched ----------------------------------------------------------
     def cost_volume(self, camera: jax.Array,
                     projector: jax.Array) -> jax.Array:
-        """ZNCC cost volume for a ``[B, H, W]`` batch.
-
-        The Pallas backend runs frames through ``lax.map`` (each frame's
-        kernel already saturates the chip; mapping avoids relying on a
-        batching rule for the hand-rolled DMA kernel); the XLA backend
-        vmaps.
-        """
-        if self.config.resolved_backend().startswith("pallas"):
-            return jax.lax.map(
-                lambda cp: self.cost_volume_single(cp[0], cp[1]),
-                (camera, projector))
+        """ZNCC cost volume for a ``[B, H, W]`` batch."""
         return jax.vmap(self.cost_volume_single)(camera, projector)
 
     def disparity(self, cost_volume: jax.Array) -> DisparityResult:
@@ -183,73 +103,30 @@ class StereoMatcher:
                             soft_disparity=d.soft_disparity, mask=d.mask,
                             confidence=d.confidence)
 
-    # -- fused inference path ----------------------------------------------
+    # -- maps without the volume -------------------------------------------
     def disparity_maps(self, camera: jax.Array,
                        projector: jax.Array) -> PipelineMaps:
-        """Batched ``[B, H, W]`` pair → disparity maps, volume-free.
+        """Batched ``[B, H, W]`` pair → disparity maps (inference).
 
-        On the Pallas backend this runs the fused kernel
-        (:func:`..ops.pallas_pipeline.pallas_stereo_pipeline`): the cost
-        volume never reaches HBM, collapsing per-frame memory traffic
-        from ~2·volume to ~6 maps.  Inference-only (not differentiable);
-        for training go through :meth:`cost_volume` + :meth:`disparity`.
+        On the "pallas" backends a banded config runs the fused kernel
+        (:func:`..ops.fused.fused_disparity_maps`): the cost volume never
+        reaches device memory.  Otherwise, and in all-pairs mode, it is
+        the volume op followed by the XLA head.  Not differentiable on
+        the kernel path; for training use :meth:`trainable_disparity_maps`.
         """
         c = self.config
         backend = c.resolved_backend()
-        if backend.startswith("pallas"):
-            if c.num_disparities is None:
-                raise ValueError("fused pipeline requires banded mode")
-
-            interp = backend == "pallas_interpret"
-            hb, dtb = c.pipeline_blocks or (32, 40)
-
-            def one(cam, proj):
-                return pallas_stereo_pipeline(
-                    cam, proj, c.num_disparities, c.kernel_size,
-                    c.epsilon, c.softargmax_beta, c.cost_threshold,
-                    hb, dtb, interp)
-
-            if camera.shape[0] == 1:
-                # Stacking a single frame only adds gap-row compute.
-                maps = one(camera[0], projector[0])
-                return jax.tree_util.tree_map(lambda x: x[None], maps)
-            # One kernel launch for the whole batch (frames stacked along
-            # H) — beats per-frame dispatch (see _run_stacked).
-            return _run_stacked(one, camera, projector, c.kernel_size)
-        out = self(camera, projector)
-        return PipelineMaps(disparity=out.disparity,
-                            soft_disparity=out.soft_disparity,
-                            mask=out.mask, confidence=out.confidence)
+        if backend == "xla" or c.num_disparities is None:
+            return self.trainable_disparity_maps(camera, projector)
+        return fused_disparity_maps(
+            camera, projector, c.num_disparities, c.kernel_size, c.epsilon,
+            c.softargmax_beta, c.cost_threshold,
+            interpret=backend == "pallas_interpret", precision=c.precision)
 
     def trainable_disparity_maps(self, camera: jax.Array,
                                  projector: jax.Array) -> PipelineMaps:
-        """Differentiable batched ``[B, H, W]`` pair → disparity maps.
-
-        On the Pallas backend this is the fused trainable pipeline:
-        neither the cost volume nor its cotangent ever exists in HBM
-        (gradients flow through ``soft_disparity`` and ``confidence``;
-        camera-only, reference parity).  Elsewhere it is the volume op +
-        XLA head.
-        """
-        c = self.config
-        backend = c.resolved_backend()
-        # The fused trainable kernel's VJP is camera-only (reference
-        # parity); projector training must take the volume + XLA-head path.
-        if backend.startswith("pallas") and not c.grad_projector:
-            if c.num_disparities is None:
-                raise ValueError("fused pipeline requires banded mode")
-            interp = backend == "pallas_interpret"
-
-            def one(cam, proj):
-                return stereo_pipeline_trainable(
-                    cam, proj, c.num_disparities, c.kernel_size,
-                    c.epsilon, c.softargmax_beta, c.cost_threshold, interp,
-                    bwd_block_rows=c.trainable_bwd_block_rows or 0)
-
-            if camera.shape[0] == 1:
-                maps = one(camera[0], projector[0])
-                return jax.tree_util.tree_map(lambda x: x[None], maps)
-            return _run_stacked(one, camera, projector, c.kernel_size)
+        """Differentiable batched ``[B, H, W]`` pair → disparity maps: the
+        volume op (closed-form camera VJP) followed by the XLA head."""
         out = self(camera, projector)
         return PipelineMaps(disparity=out.disparity,
                             soft_disparity=out.soft_disparity,
@@ -259,7 +136,7 @@ class StereoMatcher:
                           tolerance: float = 1.0) -> PipelineMaps:
         """Disparity maps with left-right consistency checking.
 
-        Runs the fused pipeline in both directions (the right match is
+        Runs :meth:`disparity_maps` in both directions (the right match is
         the left match of the horizontally flipped pair) and zeroes out
         pixels whose two estimates disagree by more than ``tolerance``
         px — occlusions and ambiguous matches that the confidence
@@ -286,6 +163,8 @@ class StereoMatcher:
     def sharded_cost_volume(self, camera: jax.Array, projector: jax.Array,
                             mesh: Mesh) -> jax.Array:
         """Cost volume sharded over a ``(data, space)`` mesh."""
+        from custereomatching_tpu.parallel.sharded import sharded_cost_volume
+
         return sharded_cost_volume(camera, projector, self.config, mesh)
 
     def sharded_apply(self, camera: jax.Array, projector: jax.Array,

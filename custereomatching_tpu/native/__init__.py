@@ -1,7 +1,7 @@
 """Native C++ host runtime: image decode, .npy parsing, preprocessing.
 
 The reference's native layer (C++/CUDA extension, custma/src/) handled
-host orchestration and kernels; on TPU the kernels are Pallas/Mosaic, so
+host orchestration and kernels; here the kernels are XLA and Pallas, so
 the native runtime that remains is the host data path.  This package
 builds ``libcustereo_io.so`` with g++ (links libpng/zlib) and binds it
 via ctypes — no pybind11 required.

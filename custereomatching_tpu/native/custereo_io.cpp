@@ -2,12 +2,12 @@
 //
 // The reference's native layer is a C++/CUDA extension whose host side
 // validates inputs, allocates buffers and launches kernels
-// (reference: custma/src/stereo_matching.cpp, bindings.cpp).  On TPU the
-// kernel launches belong to XLA/Mosaic, so the native runtime work that
-// remains host-side is the data path: image decode, normalization,
-// channel extraction, .npy parsing and tile-padding — the per-frame CPU
-// work that would otherwise bottleneck a >300 fps device pipeline if left
-// to interpreted Python.  Exposed as a plain C ABI consumed via ctypes
+// (reference: custma/src/stereo_matching.cpp, bindings.cpp).  Here XLA
+// launches the kernels, so the native runtime work that remains
+// host-side is the data path: image decode, normalization, channel
+// extraction, .npy parsing and tile-padding — per-frame CPU work that
+// would otherwise hold back the device pipeline if left to interpreted
+// Python.  Exposed as a plain C ABI consumed via ctypes
 // (no pybind11 dependency).
 //
 // Build: see build.py in this directory (g++ -O3 -shared -fPIC, links

@@ -1,34 +1,19 @@
-"""Compute ops: ZNCC cost volume (oracle, XLA fast path, Pallas kernels)
-and the disparity-extraction head."""
+"""Compute ops: ZNCC cost volume (oracle and XLA op), the disparity head,
+and the fused volume-free inference kernel."""
 
 from custereomatching_tpu.ops import golden
+from custereomatching_tpu.ops.consistency import lr_consistency_mask
 from custereomatching_tpu.ops.disparity import (
     DisparityResult,
+    PipelineMaps,
     disparity_to_depth,
     extract_disparity,
-    extract_disparity_hdw,
     soft_argmax,
 )
-from custereomatching_tpu.ops.consistency import lr_consistency_mask
-from custereomatching_tpu.ops.pallas_zncc_bwd import (
-    pallas_camera_grad_banded,
-    pallas_camera_grad_banded_hdw,
-    pallas_camera_grad_banded_hdw_with_cost,
-)
-from custereomatching_tpu.ops.pallas_pipeline import (
-    PipelineMaps,
-    pallas_stereo_pipeline,
-    stereo_pipeline_trainable,
-)
-from custereomatching_tpu.ops.pallas_allpairs import (
-    pallas_cost_volume_allpairs,
-    stereo_matching_pallas_allpairs,
-)
-from custereomatching_tpu.ops.pallas_zncc import (
-    pallas_cost_volume_banded,
-    pallas_cost_volume_banded_hdw,
-    stereo_matching_pallas,
-    stereo_matching_pallas_hdw,
+from custereomatching_tpu.ops.fused import (
+    FusedState,
+    fused_disparity_maps,
+    fused_head_state,
 )
 from custereomatching_tpu.ops.zncc import (
     EPSILON,
@@ -40,25 +25,16 @@ from custereomatching_tpu.ops.zncc import (
 __all__ = [
     "golden",
     "DisparityResult",
+    "EPSILON",
+    "FusedState",
+    "PipelineMaps",
+    "box2d",
     "disparity_to_depth",
     "extract_disparity",
-    "soft_argmax",
-    "EPSILON",
-    "box2d",
-    "PipelineMaps",
-    "extract_disparity_hdw",
+    "fused_disparity_maps",
+    "fused_head_state",
     "lr_consistency_mask",
-    "pallas_camera_grad_banded",
-    "pallas_camera_grad_banded_hdw",
-    "pallas_camera_grad_banded_hdw_with_cost",
-    "pallas_cost_volume_allpairs",
-    "pallas_cost_volume_banded",
-    "pallas_cost_volume_banded_hdw",
-    "stereo_matching_pallas_allpairs",
-    "pallas_stereo_pipeline",
-    "stereo_matching_pallas_hdw",
-    "stereo_pipeline_trainable",
+    "soft_argmax",
     "stereo_matching",
-    "stereo_matching_pallas",
     "stereo_matching_with_proj_grad",
 ]

@@ -8,8 +8,8 @@ The right-to-left match reuses the same banded machinery via the
 flip trick: matching the projector against the camera with the search
 direction reversed equals running the standard left match on the
 horizontally flipped pair.  The consistency gather ``d_R(x − d_L(x))``
-is evaluated with the shift-select scan (TPU lane gathers are slow;
-see models/pyramid.py).
+is evaluated with the shift-select scan of models/pyramid.py, which
+XLA fuses into one elementwise pass.
 """
 
 from __future__ import annotations

@@ -44,6 +44,15 @@ class DisparityResult(NamedTuple):
     confidence: jax.Array
 
 
+class PipelineMaps(NamedTuple):
+    """Batched disparity maps (all ``[B, H, W]``), without the volume."""
+
+    disparity: jax.Array       # hard argmax disparity, masked
+    soft_disparity: jax.Array  # sub-pixel soft-argmax disparity, masked
+    mask: jax.Array            # confidence mask (max cost > threshold)
+    confidence: jax.Array      # per-pixel max correlation
+
+
 def soft_argmax(x: jax.Array, beta: float = 50.0, axis: int = -1) -> jax.Array:
     """Differentiable argmax: ``Σ_i softmax(βx)_i · i``.
 
@@ -110,52 +119,6 @@ def extract_disparity(
                            mask=mask, confidence=confidence)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnums=(1, 2, 3),
-    static_argnames=("threshold", "beta"))
-def extract_disparity_hdw(
-    cost_volume_hdw: jax.Array,
-    num_disparities: int,
-    height: int,
-    width: int,
-    threshold: float = 0.6,
-    beta: float = 50.0,
-) -> DisparityResult:
-    """Disparity head for **padded plane-major (DHW)** volumes
-    (``[ndt, h_pad, wo]``, the layout of
-    :func:`..pallas_zncc.stereo_matching_pallas_hdw` since round 4).
-
-    Reduces over the leading plane axis with the padded disparity planes
-    masked to −∞ (so they influence neither the max nor the softmax),
-    then crops the resulting maps to ``[height, width]``.  Because padded
-    planes/rows/columns never reach the output, autodiff produces an
-    exactly-zero cotangent for them — the contract the direct-DMA Pallas
-    backward relies on.
-    """
-    if cost_volume_hdw.ndim != 3:
-        raise ValueError(
-            f"expected [ndt, h_pad, wo] volume, got {cost_volume_hdw.shape}")
-    ndt = cost_volume_hdw.shape[0]
-    D = num_disparities
-    plane = jnp.arange(ndt, dtype=jnp.int32)[:, None, None]
-    neg = jnp.asarray(-3.0e38, cost_volume_hdw.dtype)
-    masked = jnp.where(plane <= D, cost_volume_hdw, neg)
-
-    confidence = jnp.max(masked, axis=0)[:height, :width]
-    mask = (confidence > threshold).astype(cost_volume_hdw.dtype)
-    corr_hard = jnp.argmax(masked, axis=0).astype(cost_volume_hdw.dtype)
-    corr_hard = corr_hard[:height, :width]
-
-    weights = jax.nn.softmax(masked * beta, axis=0)
-    indices = jnp.arange(ndt, dtype=cost_volume_hdw.dtype)[:, None, None]
-    corr_soft = jnp.sum(weights * indices, axis=0)[:height, :width]
-
-    return DisparityResult(disparity=corr_hard * mask,
-                           soft_disparity=corr_soft * mask,
-                           mask=mask, confidence=confidence)
-
-
 def disparity_to_depth(
     disparity: jax.Array,
     focal_length: float,
@@ -164,9 +127,9 @@ def disparity_to_depth(
 ) -> jax.Array:
     """Convert a disparity map to metric depth: ``Z = f·b / d``.
 
-    The reference's north-star application is keyframe depth maps for
-    SLAM-style mapping (BASELINE.json north_star); the reference repo stops
-    at disparity, so this is new surface area.  Pixels with disparity below
+    Depth maps are the downstream product of structured-light matching
+    (e.g. SLAM-style keyframe mapping); the reference repo stops at
+    disparity, so this is new surface area.  Pixels with disparity below
     ``min_disparity`` (including masked-out zeros) map to depth 0.
     """
     safe = jnp.maximum(disparity, min_disparity)

@@ -1,6 +1,6 @@
-"""TPU-native ZNCC stereo cost volume with an analytic custom VJP.
+"""ZNCC stereo cost volume with an analytic custom VJP, in plain XLA.
 
-This is the production op of the framework — the TPU-first redesign of the
+This is the production op of the framework — a redesign of the
 reference's CUDA extension (``custma.stereo_matching``,
 custma/stereo_matching_wrapper.py:7-35 and
 custma/src/stereo_matching_kernel.cu).  It is *not* a translation:
@@ -10,14 +10,13 @@ custma/src/stereo_matching_kernel.cu).  It is *not* a translation:
   kernel.cu:40-70).  Here the window statistics are computed **once per
   image** as separable box filters using the expanded-moments identity
   ``Σ(x−μx)(y−μy) = Σxy − ΣxΣy/k²``, and the cross term becomes either a
-  row-Hankel matmul (all-pairs mode → MXU) or a 2-D box filter of the
-  camera×shifted-projector product (banded mode → VPU).  Total work drops
+  row-Hankel matmul (all-pairs mode) or a 2-D box filter of the
+  camera×shifted-projector product (banded mode).  Total work drops
   from O(H·W·D·k²) to O(H·W·D·k) with perfect vectorization.
 
 * The reference backward scatters H·W·W·k² atomicAdd contributions through
-  an ``[H, W, k, k]`` intermediate (kernel.cu:75-179).  TPUs have no
-  atomics; instead the VJP is derived in closed form and evaluated as
-  **gathers and box filters** (see ``_camera_grad_*`` below) — the race
+  an ``[H, W, k, k]`` intermediate (kernel.cu:75-179).  Here the VJP is
+  derived in closed form and evaluated as **gathers and box filters** (see ``_camera_grad_*`` below) — the race
   class is eliminated by construction.
 
 Numerical contract (bit-parity targets with the reference):
@@ -101,8 +100,7 @@ def _hankel_cols(img: jax.Array, k: int) -> jax.Array:
     """Row-wise Hankel expansion: out[h, w, j] = img_padded[h, w + j - k//2].
 
     Builds the [W, k] sliding-window view of each row so the all-pairs
-    cross-moment becomes a per-row [W, k] @ [k, W] matmul (MXU-friendly,
-    the same row-matmul structure as the reference's own golden torch path,
+    cross-moment becomes a per-row [W, k] @ [k, W] matmul (the same row-matmul structure as the reference's own golden torch path,
     examples/verify.py:116)."""
     p = k // 2
     H, W = img.shape
@@ -174,7 +172,7 @@ def _forward_banded(camera, projector, D, k, eps, precision):
     """Banded [H, W, D+1] cost volume: band d ↔ projector column (w − d) —
     the layout the reference intended but left commented out
     (kernel.cu:30-33,197)."""
-    del precision  # banded path is pure VPU/box-filter work
+    del precision  # banded path is box filters and elementwise work
     _, ex2, _, ey2_band, _, exy, _ = _banded_stats(camera, projector, D, k)
     deno = jnp.sqrt(ex2[:, :, None] * ey2_band + eps)
     return (exy + eps) / deno
@@ -220,7 +218,7 @@ def _camera_grad_banded(camera, projector, g, D, k, eps):
 
 
 def _camera_grad_allpairs(camera, projector, g, cost, k, eps, precision):
-    """All-pairs camera gradient, restructured for TPU memory traffic.
+    """All-pairs camera gradient, restructured for memory traffic.
 
     Two departures from the naive diagonal-band evaluation (which built
     the field ``M[h,x,e] = Σ_δ gr[h,x+δ,e+δ]`` with a k-iteration shift
@@ -237,7 +235,7 @@ def _camera_grad_allpairs(camera, projector, g, cost, k, eps, precision):
           E[y,w,j] = Σ_e G2[y,w,e] · proj_pad[y, e+j−p]
 
       — ``E`` is a per-row ``[W, W] @ [W, k]`` matmul against the
-      projector's Hankel view (MXU, K-dim = W deep), and the final sum
+      projector's Hankel view (K-dim = W deep), and the final sum
       is k cheap shifted ``[H, W]`` slices.  One volume read for the
       box, one for the matmul, no volume-sized shift loop.
     """
@@ -283,7 +281,7 @@ def _stereo_matching(
     epsilon: float = EPSILON,
     precision: Optional[str] = "highest",
 ) -> jax.Array:
-    """Differentiable ZNCC stereo cost volume (TPU-native).
+    """Differentiable ZNCC stereo cost volume.
 
     The public-API analogue of ``custma.stereo_matching(camera, projector,
     D, kernel_size)`` (custma/stereo_matching_wrapper.py:35).  Deliberate
@@ -304,8 +302,8 @@ def _stereo_matching(
       num_disparities: None → all-pairs; int D → banded ``[H, W, D+1]``.
       kernel_size: odd correlation window side.
       epsilon: numerical epsilon (1e-8 for reference parity).
-      precision: "highest" for fp32 MXU passes (parity), "default"/None to
-        let XLA pick (faster, bf16 passes).
+      precision: "highest" for true float32 contractions (parity),
+        "default"/None to let XLA pick (on a GPU, TF32: faster, ~10 bits).
 
     Returns:
       The cost volume.

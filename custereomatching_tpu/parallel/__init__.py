@@ -1,7 +1,7 @@
 """Parallelism layer: device meshes, halo exchange, sharded pipeline.
 
-Entirely new TPU-first surface — the reference has no distributed or
-multi-device code of any kind (survey §2.4, §5.8).
+Entirely new surface — the reference has no distributed or multi-device
+code of any kind (survey §2.4, §5.8).
 """
 
 from custereomatching_tpu.parallel.halo import halo_exchange

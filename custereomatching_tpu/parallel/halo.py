@@ -3,11 +3,12 @@
 The reference is strictly single-GPU — its only parallelism is CUDA
 threads over cost-volume elements (reference:
 custma/src/stereo_matching_kernel.cu:28,194) and it has no collectives of
-any kind (survey §2.4).  Scaling a k×k windowed correlation across a TPU
-mesh requires each row-shard to see ``k//2`` rows of context from its
-neighbors; this module implements that exchange TPU-natively with
-``lax.ppermute`` over an ICI ring — the structural analogue of ring
-attention's block exchange, applied to image rows instead of KV blocks.
+any kind (survey §2.4).  Scaling a k×k windowed correlation across a
+device mesh requires each row-shard to see ``k//2`` rows of context from
+its neighbors; this module implements that exchange with
+``lax.ppermute`` between neighbouring devices — the structural analogue
+of ring attention's block exchange, applied to image rows instead of KV
+blocks.
 
 Boundary semantics: ``lax.ppermute`` delivers **zeros** to devices that
 receive nothing, so the first shard's top halo and the last shard's

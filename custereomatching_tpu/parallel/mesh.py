@@ -1,8 +1,8 @@
 """Device-mesh construction for the sharded stereo pipeline.
 
-New TPU-first design with no reference counterpart (the reference has no
-distributed layer at all — no torch.distributed, NCCL, or multi-device
-code anywhere; survey §2.4, §5.8).  The mesh has two axes:
+No reference counterpart (the reference has no distributed layer at all
+— no torch.distributed, NCCL, or multi-device code anywhere; survey
+§2.4, §5.8).  The mesh has two axes:
 
 * ``data``  — stereo frame pairs (batch / video frames): pure data
   parallelism, no communication in the forward pass.
@@ -10,9 +10,8 @@ code anywhere; survey §2.4, §5.8).  The mesh has two axes:
   sequence/context parallelism.  Requires a ``kernel_size//2``-row halo
   exchange between ring neighbors (see :mod:`.halo`).
 
-On a real pod slice, lay ``space`` along an ICI-adjacent mesh dimension
-so halo ppermutes ride ICI; ``data`` can span DCN (it never communicates
-except for metric psums).
+The cards of one host are joined all to all, so devices are laid out in
+``jax.devices()`` order.
 """
 
 from __future__ import annotations

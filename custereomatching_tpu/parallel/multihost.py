@@ -1,16 +1,15 @@
-"""Multi-host initialization and mesh construction.
+"""Multi-process initialization and mesh construction.
 
 The reference has no distributed communication layer whatsoever — no
-NCCL/MPI/Gloo, no torch.distributed (survey §5.8).  The TPU-native
-equivalent is PJRT + XLA collectives: ``jax.distributed.initialize()``
-wires the hosts together, a global mesh lays ``space`` along ICI-adjacent
-devices so halo ppermutes stay on-chip-interconnect while ``data`` may
-span DCN (it only communicates for scalar metric psums).
+NCCL/MPI/Gloo, no torch.distributed (survey §5.8).  Here
+``jax.distributed.initialize()`` wires processes together and XLA runs
+the collectives (NCCL between GPUs).  One process drives every card of
+one host, so a single-host run needs none of this; call
+:func:`initialize_multihost` once per process, before any JAX
+computation, only when several processes share one job.
 
-This module is exercised in CI via the virtual-device path (a CPU mesh
-with ``--xla_force_host_platform_device_count``, see tests/conftest.py);
-on a real pod slice call :func:`initialize_multihost` once per process
-before any JAX computation.
+CI exercises the mesh logic on virtual CPU devices
+(``--xla_force_host_platform_device_count``, see tests/conftest.py).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
+import numpy as np
 from jax.sharding import Mesh
 
 from custereomatching_tpu.config import MeshConfig
@@ -26,38 +26,37 @@ from custereomatching_tpu.config import MeshConfig
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Initialize JAX's distributed runtime (idempotent).
+    """Initialize JAX's distributed runtime for a multi-process job.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (GCE metadata / megascale env vars).  Safe to call on a single host —
-    failures to auto-detect are swallowed so single-process runs work.
+    Give all three arguments (e.g. ``"localhost:12345"``, 2, 0).  A
+    single-process run (``num_processes`` None or 1) needs no runtime and
+    returns at once; any failure of a multi-process initialization
+    raises.
     """
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id)
-    except Exception:
-        if num_processes not in (None, 1):
-            raise
+    if num_processes in (None, 1):
+        return
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id)
 
 
 def make_global_mesh(config: MeshConfig) -> Mesh:
-    """A ``(data, space)`` mesh over ALL processes' devices.
+    """A ``(data, space)`` mesh over ALL processes' devices, in
+    ``jax.devices()`` order.
 
-    Lays ``space`` over the fastest-varying (ICI-contiguous) device
-    dimension via ``mesh_utils.create_device_mesh``, so the per-step halo
-    ppermute rides ICI; ``data`` spans the remainder (hosts/DCN).
+    The cards of a host are joined all to all, so the layout follows the
+    algorithm alone: rows of the device grid are ``data`` replicas,
+    columns are ``space`` row-shards.
     """
-    from jax.experimental import mesh_utils
-
     n = config.num_devices
-    if n != len(jax.devices()):
+    devices = jax.devices()
+    if n != len(devices):
         raise ValueError(
-            f"mesh {config.shape} needs exactly all {len(jax.devices())} "
+            f"mesh {config.shape} needs exactly all {len(devices)} "
             f"global devices, got {n}")
-    devices = mesh_utils.create_device_mesh(config.shape)
-    return Mesh(devices, config.axis_names)
+    return Mesh(np.asarray(devices).reshape(config.shape),
+                config.axis_names)
 
 
 def process_local_batch_slice(global_batch: int) -> slice:

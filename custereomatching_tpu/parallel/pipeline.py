@@ -2,17 +2,16 @@
 
 The reference is single-GPU with no distributed layer (survey §2.4); the
 survey's pipeline-parallel row ("stage video frames through stages
-across hosts") is realized here TPU-first, not as a port of any GPU
-pattern:
+across hosts") is realized here as:
 
 * The work is split along the **disparity dimension**: stage ``s`` of
   ``S`` owns disparity planes ``[s·(D+1)/S, (s+1)·(D+1)/S)``.  Every
   stage runs the SAME program (SPMD over mesh axis ``stage``), so the
   load is balanced by construction — no per-stage model surgery.
 * What flows between stages is a frame's **online-softmax head state**
-  — four ``[H, W]`` maps ``(m, am, s, t)`` — via ``lax.ppermute`` over
-  ICI.  The merge is the associative logsumexp combine that the fused
-  Pallas kernel uses internally (ops/pallas_pipeline.py), so a frame
+  — four ``[H, W]`` maps ``(m, am, s, t)`` — via ``lax.ppermute``.  The
+  merge is the associative logsumexp combine that the fused kernel
+  applies plane by plane (:mod:`..ops.fused`), so a frame
   that has visited all stages carries exactly the full-range result:
   soft-argmax ``t/s``, confidence ``m/β``, and FIRST-max hard argmax
   (ties resolve to the lower disparity, matching ``jnp.argmax`` and the
@@ -41,7 +40,8 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from custereomatching_tpu.config import StereoConfig
-from custereomatching_tpu.ops.pallas_pipeline import PipelineMaps
+from custereomatching_tpu.ops.disparity import PipelineMaps
+from custereomatching_tpu.ops.fused import fused_head_state
 from custereomatching_tpu.ops.zncc import _stereo_matching
 
 
@@ -71,10 +71,8 @@ def chunk_state(camera: jax.Array, projector: jax.Array, d_offset,
 
     ``d_offset`` may be traced (each stage passes its own offset).
 
-    Backend routing: on a Pallas-capable config the stage runs the FUSED
-    volume-free pipeline kernel (the production fast path — the stage op
-    is then the same 2 ms-class kernel as single-device inference, at
-    (D+1)/S planes); the XLA volume path remains the fallback.
+    On the "pallas" backends the stage runs the fused volume-free kernel
+    over its planes; on "xla" the volume op and an XLA head.
     """
     off_cols = jnp.asarray(d_offset, jnp.int32)
     W = camera.shape[1]
@@ -87,9 +85,18 @@ def chunk_state(camera: jax.Array, projector: jax.Array, d_offset,
     # shift_right(proj, off): column x holds projector[x - off], so band
     # index d enumerates global disparity off + d.
     proj_sh = _shift_right(proj_p, off_cols)
-    if config.resolved_backend().startswith("pallas"):
-        return _chunk_state_fused(cam_p, proj_sh, d_offset, chunk, config,
-                                  camera.shape[0], W)
+    backend = config.resolved_backend()
+    if backend != "xla":
+        st = fused_head_state(
+            cam_p[None], proj_sh[None], chunk - 1, config.kernel_size,
+            config.epsilon, config.softargmax_beta,
+            backend == "pallas_interpret", config.precision)
+        am, conf, s, t = (x[0, :, :W] for x in st)
+        # Lift local state to global disparities: am += off and
+        # t += off·s (Σ(d+off)·e = Σd·e + off·Σe).
+        off = jnp.asarray(d_offset, am.dtype)
+        return HeadState(m=config.softargmax_beta * conf, am=am + off, s=s,
+                         t=t + off * s)
     cv = _stereo_matching(cam_p, proj_sh, chunk - 1, config.kernel_size,
                           config.epsilon, config.precision)[:, :W]
     beta = config.softargmax_beta
@@ -103,38 +110,6 @@ def chunk_state(camera: jax.Array, projector: jax.Array, d_offset,
     t = jnp.sum(d_global * e, axis=-1)
     am = am_local.astype(camera.dtype) + jnp.asarray(d_offset, camera.dtype)
     return HeadState(m=m, am=am, s=s, t=t)
-
-
-def _chunk_state_fused(cam_p, proj_sh, d_offset, chunk, config, H, W):
-    """Stage chunk through the fused Pallas kernel's raw head outputs.
-
-    The fused forward already produces exactly the online-softmax state
-    this module exchanges — ``(am, conf=m/β, s, t)`` — so a stage is one
-    kernel launch over its (D+1)/S planes, volume-free.  Local state is
-    lifted to global disparities by ``am += off`` and ``t += off·s``
-    (``Σ(d+off)·e = Σd·e + off·Σe``).
-    """
-    from custereomatching_tpu.ops.pallas_pipeline import (
-        _pipeline_forward_full,
-        _unnormalized_head,
-    )
-
-    interp = config.resolved_backend() == "pallas_interpret"
-    hb, dtb = config.pipeline_blocks or (32, 40)
-    beta = config.softargmax_beta
-    am, _soft, _mask, conf, s, t = _pipeline_forward_full(
-        cam_p, proj_sh, chunk - 1, config.kernel_size, config.epsilon,
-        beta, config.cost_threshold, hb, dtb, interp)
-    am, conf, s, t = (x[:H, :W] for x in (am, conf, s, t))
-    m = beta * conf
-    if _unnormalized_head(beta, chunk - 1):
-        # Kernel accumulated absolute sums Σe^{βc}; convert to the
-        # m-relative convention merge_states expects.
-        scale = jnp.exp(-m)
-        s = s * scale
-        t = t * scale
-    off = jnp.asarray(d_offset, am.dtype)
-    return HeadState(m=m, am=am + off, s=s, t=t + off * s)
 
 
 def _shift_right(img: jax.Array, off: jax.Array) -> jax.Array:
@@ -252,6 +227,9 @@ def pipelined_video_maps(
         spmd, mesh=mesh,
         in_specs=(P(), P()),
         out_specs=PipelineMaps(*(P(axis_name),) * 4),
+        # The scan carry starts replicated and becomes stage-varying
+        # after the first ppermute, and stages may run a pallas_call;
+        # skip the vma check.
         check_vma=False)
     out = fn(cameras, projectors)
     # The complete results live on the LAST stage's shard.

@@ -2,12 +2,12 @@
 
 The reference processes one ``[H, W]`` pair on one GPU with no batch
 dimension (reference: custma/stereo_matching_wrapper.py:11-14) and no
-distributed layer (survey §2.4).  This module is the TPU-first scale-out
-design mandated by the north star:
+distributed layer (survey §2.4).  Here:
 
 * frames shard over mesh axis ``data`` (pure DP, zero comms);
 * image rows shard over mesh axis ``space`` with a ``kernel_size//2``-row
-  halo exchange over ICI (:func:`..parallel.halo.halo_exchange`);
+  halo exchange between neighbouring devices
+  (:func:`..parallel.halo.halo_exchange`);
 * the cost volume never materializes globally — each shard holds its
   ``[B/dp, H/sp, W, D+1]`` slice, and downstream reductions (disparity
   head, losses) are elementwise or along the *unsharded* disparity axis,
@@ -28,13 +28,8 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from custereomatching_tpu.config import StereoConfig
-from custereomatching_tpu.ops.pallas_pipeline import (
-    PipelineMaps,
-    pallas_stereo_pipeline,
-    stereo_pipeline_trainable,
-)
-from custereomatching_tpu.ops.pallas_zncc import stereo_matching_pallas
-from custereomatching_tpu.ops.zncc import _stereo_matching
+from custereomatching_tpu.models.stereo import StereoMatcher
+from custereomatching_tpu.ops.disparity import PipelineMaps
 from custereomatching_tpu.parallel.halo import halo_exchange
 
 # Canonical shardings for the pipeline's arrays.
@@ -53,52 +48,26 @@ def volume_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, VOLUME_SPEC)
 
 
-def _pair_op(config: StereoConfig):
-    """Single-pair cost-volume op for the resolved backend."""
-    backend = config.resolved_backend()
-    if backend.startswith("pallas") and config.num_disparities is not None:
-        interp = backend == "pallas_interpret"
+def _halo_extend(camera, projector, config: StereoConfig):
+    """Per-shard ``[B_local, H_local, W]`` blocks extended by the halo rows
+    their windows need (none on a single row-shard: the op's own zero
+    padding is exactly the halo there)."""
+    halo = config.pad if lax.axis_size("space") > 1 else 0
+    return (halo, halo_exchange(camera, halo, "space", axis=1),
+            halo_exchange(projector, halo, "space", axis=1))
 
-        def one(cam, proj):
-            return stereo_matching_pallas(
-                cam, proj, config.num_disparities, config.kernel_size,
-                config.epsilon, interp)
 
-        return one, True  # map sequentially (hand-rolled DMA kernel)
-
-    def one(cam, proj):
-        return _stereo_matching(cam, proj, config.num_disparities,
-                                config.kernel_size, config.epsilon,
-                                config.precision)
-
-    return one, False
+def _crop(x, halo, rows):
+    """Drop the outputs of windows centred in halo rows (they belong to the
+    neighbour shard)."""
+    return lax.slice_in_dim(x, halo, halo + rows, axis=1)
 
 
 def _local_cost_volume(camera, projector, config: StereoConfig):
-    """Per-shard computation: halo-extend rows, run the op, crop the halo.
-
-    Runs inside ``shard_map``; ``camera``/``projector`` are the local
-    ``[B_local, H_local, W]`` blocks.
-    """
-    # Single row-shard: the halo would be all zeros — exactly the zero
-    # padding the op applies internally — so skip the extend+crop round
-    # trip entirely (it costs ~(2·pad/H) extra rows of kernel work).
-    halo = config.pad if lax.axis_size("space") > 1 else 0
-    cam_e = halo_exchange(camera, halo, "space", axis=1)
-    proj_e = halo_exchange(projector, halo, "space", axis=1)
-
-    one, sequential = _pair_op(config)
-    if cam_e.shape[0] == 1:
-        # Single local frame: skip the map/vmap glue entirely (an 8%-class
-        # overhead on the mesh-1×1 path for zero benefit).
-        cv_e = one(cam_e[0], proj_e[0])[None]
-    elif sequential:
-        cv_e = jax.lax.map(lambda cp: one(cp[0], cp[1]), (cam_e, proj_e))
-    else:
-        cv_e = jax.vmap(one)(cam_e, proj_e)
-    # Windows centered in halo rows belong to the neighbor shard; crop them.
-    h_local = camera.shape[1]
-    return lax.slice_in_dim(cv_e, halo, halo + h_local, axis=1)
+    """Per-shard volume (inside ``shard_map``): halo-extend, run, crop."""
+    halo, cam_e, proj_e = _halo_extend(camera, projector, config)
+    cv_e = StereoMatcher(config).cost_volume(cam_e, proj_e)
+    return _crop(cv_e, halo, camera.shape[1])
 
 
 def sharded_cost_volume(
@@ -127,44 +96,18 @@ def sharded_cost_volume(
         mesh=mesh,
         in_specs=(IMAGE_SPEC, IMAGE_SPEC),
         out_specs=VOLUME_SPEC,
-        # Pallas calls inside shard_map cannot declare varying-mesh-axes
-        # metadata on their out_shapes; skip the vma check.
-        check_vma=False,
     )
     return fn(camera, projector)
 
 
 def _local_disparity_maps(camera, projector, config: StereoConfig,
                           trainable: bool):
-    """Per-shard fused pipeline: halo-extend rows, run the fused kernel on
-    the extended block, crop the halo rows of the output maps."""
-    # See _local_cost_volume: one row-shard needs no halo round trip.
-    halo = config.pad if lax.axis_size("space") > 1 else 0
-    cam_e = halo_exchange(camera, halo, "space", axis=1)
-    proj_e = halo_exchange(projector, halo, "space", axis=1)
-    backend = config.resolved_backend()
-    interp = backend == "pallas_interpret"
-    fn = stereo_pipeline_trainable if trainable else pallas_stereo_pipeline
-
-    hb, dtb = config.pipeline_blocks or (32, 40)
-
-    def one(cp):
-        if trainable:
-            return fn(cp[0], cp[1], config.num_disparities,
-                      config.kernel_size, config.epsilon,
-                      config.softargmax_beta, config.cost_threshold, interp)
-        return fn(cp[0], cp[1], config.num_disparities, config.kernel_size,
-                  config.epsilon, config.softargmax_beta,
-                  config.cost_threshold, hb, dtb, interp)
-
-    if cam_e.shape[0] == 1:
-        maps_e = jax.tree_util.tree_map(
-            lambda m: m[None], one((cam_e[0], proj_e[0])))
-    else:
-        maps_e = jax.lax.map(one, (cam_e, proj_e))
-    h_local = camera.shape[1]
-    crop = lambda x: lax.slice_in_dim(x, halo, halo + h_local, axis=1)
-    return PipelineMaps(*(crop(m) for m in maps_e))
+    """Per-shard maps (inside ``shard_map``): halo-extend, run, crop."""
+    halo, cam_e, proj_e = _halo_extend(camera, projector, config)
+    model = StereoMatcher(config)
+    run = model.trainable_disparity_maps if trainable else model.disparity_maps
+    maps_e = run(cam_e, proj_e)
+    return PipelineMaps(*(_crop(m, halo, camera.shape[1]) for m in maps_e))
 
 
 def sharded_disparity_maps(
@@ -175,28 +118,24 @@ def sharded_disparity_maps(
     *,
     trainable: bool = False,
 ) -> PipelineMaps:
-    """Fused volume-free disparity pipeline, sharded over ``(data, space)``.
+    """Disparity maps of a ``[B, H, W]`` batch, sharded over ``(data, space)``.
 
-    Combines the two headline features: the fused Pallas pipeline (no
-    cost volume in HBM) and spatial scale-out (row shards + ppermute halo
-    exchange over ICI).  ``trainable=True`` uses the differentiable
-    variant (camera gradients flow; halo-row gradients return to their
+    Each shard runs :meth:`..models.StereoMatcher.disparity_maps` on its
+    halo-extended rows — the fused volume-free kernel on the "pallas"
+    backends.  ``trainable=True`` runs the differentiable volume + head
+    instead (camera gradients flow; halo-row gradients return to their
     owner shard via the transposed ppermute).
-
-    Requires a Pallas-capable backend and banded mode.
     """
     if config.num_disparities is None:
-        raise ValueError("fused sharded pipeline requires banded mode")
-    if not config.resolved_backend().startswith("pallas"):
-        raise ValueError(
-            "fused sharded pipeline requires a pallas backend; use "
-            "sharded_cost_volume + the XLA head instead")
+        raise ValueError("sharded disparity maps require banded mode")
     fn = jax.shard_map(
         functools.partial(_local_disparity_maps, config=config,
                           trainable=trainable),
         mesh=mesh,
         in_specs=(IMAGE_SPEC, IMAGE_SPEC),
         out_specs=PipelineMaps(MAP_SPEC, MAP_SPEC, MAP_SPEC, MAP_SPEC),
+        # A pallas_call declares no varying-mesh-axes on its outputs (and
+        # the Pallas interpreter cannot carry them); skip the vma check.
         check_vma=False,
     )
     return fn(camera, projector)

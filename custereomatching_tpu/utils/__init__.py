@@ -1,4 +1,5 @@
-"""Utilities: timing/benchmark harness, failure handling, metrics."""
+"""Utilities: timing/benchmark harness, failure handling, metrics,
+device peaks and the compilation cache."""
 
 from custereomatching_tpu.utils.failsafe import (
     device_healthcheck,
@@ -9,20 +10,6 @@ from custereomatching_tpu.utils.metrics import (
     bad_pixel_rate,
     disparity_metrics,
     end_point_error,
-)
-from custereomatching_tpu.utils.kernel_model import (
-    allpairs_backward_cost,
-    allpairs_forward_cost,
-    fused_backward_c_cost,
-    fused_backward_cost,
-    fused_forward_cost,
-    kernel_bound,
-    measure_vpu_rates,
-    projector_backward_cost,
-    stage_op_cost,
-    transpose_volume_cost,
-    volume_backward_cost,
-    volume_forward_cost,
 )
 from custereomatching_tpu.utils.profiling import (
     device_specs,
@@ -40,20 +27,8 @@ __all__ = [
     "device_specs",
     "disparity_metrics",
     "end_point_error",
-    "allpairs_backward_cost",
-    "allpairs_forward_cost",
-    "fused_backward_c_cost",
-    "fused_backward_cost",
-    "fused_forward_cost",
     "is_transient_device_error",
-    "kernel_bound",
-    "measure_vpu_rates",
-    "projector_backward_cost",
-    "stage_op_cost",
-    "transpose_volume_cost",
     "trace",
-    "volume_backward_cost",
-    "volume_forward_cost",
     "with_retries",
     "zncc_roofline",
 ]

@@ -3,11 +3,11 @@
 The reference is fail-fast and single-process: `TORCH_CHECK` macros and
 one shape assert are its entire failure story (reference:
 custma/include/stereo_matching.hpp:20-33, custma/src/stereo_matching.cpp:28).
-A deployed TPU service needs more, and this module supplies the pieces
+A deployed service needs more, and this module supplies the pieces
 that make sense for a stateless vision op (survey §5.3):
 
 * **transient-fault classification** — device unavailability, preemption
-  and relay hiccups surface as runtime errors whose retry is safe for a
+  and collective timeouts surface as runtime errors whose retry is safe for a
   stateless op (same inputs → same outputs; no optimizer state to
   corrupt);
 * **bounded retry with backoff** (:func:`with_retries`) — wraps any
@@ -27,19 +27,12 @@ from typing import Callable, Iterable, Optional, TypeVar
 
 T = TypeVar("T")
 
-# Substrings that mark an error as plausibly transient on a TPU/PJRT
-# stack: device preemption/migration, collective timeouts, and the
-# remote-relay failures seen on tunneled platforms.
+# Status codes that mark a PJRT runtime error as plausibly transient:
+# device preemption or loss, and collective timeouts.
 TRANSIENT_MARKERS: tuple = (
     "UNAVAILABLE",
     "DEADLINE_EXCEEDED",
     "ABORTED",
-    "Socket closed",
-    "connection reset",
-    "Connection reset",
-    "temporarily unavailable",
-    "remote_compile",
-    "HTTP 5",
 )
 
 
@@ -95,8 +88,7 @@ def device_healthcheck(device=None, tolerance: float = 1e-6) -> bool:
     """Run a tiny computation on ``device`` and verify the answer.
 
     Returns True iff the device executed correctly — a readiness probe
-    that catches wedged runtimes that still accept dispatches.  Uses a
-    readback (not just ``block_until_ready``) per the platform notes.
+    that catches wedged runtimes that still accept dispatches.
     """
     import jax
     import jax.numpy as jnp

@@ -1,8 +1,8 @@
 """Stereo evaluation metrics: end-point error and bad-pixel rates.
 
 The reference has no metrics at all (its "verification" is a manual ipdb
-comparison, examples/verify.py:154-156); the BASELINE target for this
-framework is stated in EPE terms, so these are first-class here.
+comparison, examples/verify.py:154-156); accuracy here is stated in EPE
+terms, so these are first-class.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 The reference's entire observability story is unsynchronized wall-clock
 prints (survey §5.1, custma/utils.py).  Here: (a) a context manager
 around ``jax.profiler`` for real device traces viewable in Perfetto /
-TensorBoard, and (b) roofline accounting for the ZNCC pipeline so every
-benchmark can report its distance from the hardware bound — the basis of
-the speed-of-light claims in BASELINE.md.
+TensorBoard, and (b) roofline accounting for the ZNCC pipeline against
+the published peaks of the device, so a benchmark can report its
+distance from the hardware bound.
 """
 
 from __future__ import annotations
@@ -15,24 +15,28 @@ from typing import Dict, Iterator, Optional
 
 import jax
 
-# Peak specs by device kind: (HBM bytes/s, f32 VPU ops/s).
-# VPU figure = 8x128 lanes x 4 ALUs x clock; used for the compute leg of
-# the roofline (the ZNCC pipeline is VPU-bound, not MXU-bound).
+# Published peaks by ``device_kind`` (NVIDIA H100 SXM data sheet, dense):
+#   hbm_bw      — device-memory bandwidth, bytes/s;
+#   fp32_flops  — float32 FLOP/s outside the tensor cores (an FMA counts
+#                 as two), the compute leg of the ZNCC roofline.
 DEVICE_SPECS: Dict[str, Dict[str, float]] = {
-    "TPU v4": {"hbm_bw": 1.2e12, "vpu_f32": 4 * 1024 * 0.94e9},
-    "TPU v5 lite": {"hbm_bw": 8.19e11, "vpu_f32": 4 * 1024 * 0.94e9},
-    "TPU v5": {"hbm_bw": 2.765e12, "vpu_f32": 4 * 1024 * 1.75e9},
-    "TPU v6 lite": {"hbm_bw": 1.64e12, "vpu_f32": 4 * 1024 * 0.94e9},
+    "NVIDIA H100 80GB HBM3": {"hbm_bw": 3.35e12, "fp32_flops": 67e12},
 }
 
 
-def device_specs(device: Optional[jax.Device] = None) -> Dict[str, float]:
-    """Peak specs for ``device`` (default: first device), with fallback."""
-    kind = (device or jax.devices()[0]).device_kind
-    for name, spec in DEVICE_SPECS.items():
-        if kind.startswith(name):
-            return dict(spec)
-    return dict(DEVICE_SPECS["TPU v5 lite"])
+def device_specs(device_kind: Optional[str] = None) -> Dict[str, float]:
+    """Peak specs for ``device_kind`` (default: the first device's).
+
+    Raises ``KeyError`` for a device without published peaks here: a
+    roofline share against a guessed peak would be meaningless.
+    """
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    if device_kind not in DEVICE_SPECS:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; known: "
+            f"{sorted(DEVICE_SPECS)}")
+    return dict(DEVICE_SPECS[device_kind])
 
 
 @contextlib.contextmanager
@@ -52,7 +56,7 @@ def trace(log_dir: str) -> Iterator[None]:
 
 def zncc_roofline(H: int, W: int, D: int, k: int, *,
                   materialize_volume: bool,
-                  device: Optional[jax.Device] = None) -> Dict[str, float]:
+                  device_kind: Optional[str] = None) -> Dict[str, float]:
     """Roofline model of one ZNCC frame on the current device.
 
     Memory leg: mandatory HBM traffic — read both images, plus write (and
@@ -60,11 +64,11 @@ def zncc_roofline(H: int, W: int, D: int, k: int, *,
     pipeline writes only four maps.  Compute leg: the separable-moments
     formulation costs ~2·2k adds per output element for the windowed
     cross term plus ~10 elementwise ops (and ~2 transcendentals in the
-    fused head, charged at 4 ops each).
+    fused head, charged at 4 ops each), each charged as one float32 FLOP.
 
     Returns bounds in seconds and frames/s plus the binding resource.
     """
-    spec = device_specs(device)
+    spec = device_specs(device_kind)
     elems = H * W * (D + 1)
     image_bytes = 2 * H * W * 4
     if materialize_volume:
@@ -74,7 +78,7 @@ def zncc_roofline(H: int, W: int, D: int, k: int, *,
         bytes_moved = image_bytes + 4 * H * W * 4
         ops = elems * (4 * k + 10 + 2 * 4)
     t_mem = bytes_moved / spec["hbm_bw"]
-    t_compute = ops / spec["vpu_f32"]
+    t_compute = ops / spec["fp32_flops"]
     t_bound = max(t_mem, t_compute)
     return {
         "t_memory_s": t_mem,

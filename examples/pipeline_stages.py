@@ -13,8 +13,8 @@ On a single host, validate the logic with virtual devices:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
       python examples/pipeline_stages.py --stages 4
 
-On a pod slice the stage ring rides ICI and steady-state throughput
-approaches S× the single-device rate of a (D+1)/S-range match.
+On S cards, steady-state throughput approaches S× the single-card rate
+of a (D+1)/S-range match.
 """
 
 from __future__ import annotations
@@ -23,11 +23,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if "cpu" in os.environ.get("JAX_PLATFORMS", ""):
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
 
 import argparse
 
@@ -42,6 +37,7 @@ from custereomatching_tpu.parallel.pipeline import (
     stage_mesh,
 )
 from custereomatching_tpu.utils import disparity_metrics
+from custereomatching_tpu.utils.cache import enable_compile_cache
 
 
 def main() -> None:
@@ -54,6 +50,7 @@ def main() -> None:
                     help="D; D+1 planes must divide evenly into stages")
     ap.add_argument("--kernel-size", "-k", type=int, default=7)
     args = ap.parse_args()
+    enable_compile_cache()
 
     n_dev = len(jax.devices())
     S = min(args.stages, n_dev)

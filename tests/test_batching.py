@@ -1,10 +1,9 @@
-"""H-stacked batching: one kernel launch per batch, bit-exact per frame.
+"""Batching: one kernel launch per batch, bit-exact per frame.
 
-The batched fused pipeline stacks frames along H with a 2·(k//2) zero-row
-gap (models/stereo.py::_run_stacked); the zero-pad window convention
-(reference query_ij, custma/src/stereo_matching_kernel.cu:6-12) makes the
-gap exactly absorb every cross-frame window, so batching must be
-bit-identical to running frames one at a time.
+The fused kernel takes the batch as a grid axis (ops/fused.py): each
+frame's programs read only that frame, so batching must be
+bit-identical to running frames one at a time, and the differentiable
+maps' gradient must match the per-frame gradient.
 """
 
 import jax
@@ -57,14 +56,14 @@ def test_stacked_batch_gradients_match_per_frame():
     g = jax.grad(loss_batched)(cam)
     for i in range(cam.shape[0]):
         gi = jax.grad(lambda c: loss_frame(c, i))(cam[i])
-        # Stacked tiles accumulate in a different order: fp32
+        # Batched XLA programs may accumulate in another order: fp32
         # reassociation noise only.
         np.testing.assert_allclose(np.asarray(g[i]), np.asarray(gi),
                                    rtol=1e-4, atol=1e-5)
 
 
 def test_stacked_batch_xla_reference():
-    """Stacked Pallas batch agrees with the XLA volume+head path."""
+    """Batched fused kernel agrees with the XLA volume+head path."""
     cam, proj = _batch(B=2, H=20, W=48, seed=2)
     pall = StereoMatcher(StereoConfig(kernel_size=5, num_disparities=8,
                                       backend="pallas_interpret"))

@@ -22,7 +22,7 @@ def test_classification():
     assert is_transient_device_error(
         _FakeDeviceError("UNAVAILABLE: device preempted"))
     assert is_transient_device_error(
-        _FakeDeviceError("HTTP 500: remote_compile relay"))
+        _FakeDeviceError("DEADLINE_EXCEEDED: all-reduce timed out"))
     assert not is_transient_device_error(ValueError("bad shape"))
     assert not is_transient_device_error(RuntimeError("INVALID_ARGUMENT"))
 

@@ -1,11 +1,12 @@
-"""Randomized-shape conformance sweep: every backend vs the oracle.
+"""Randomized-shape conformance sweep: every path vs the oracle.
 
 The parametrized tests elsewhere pin a handful of shapes; this sweep
-draws random (H, W, D, k, block) combinations each run from a seeded
+draws random (H, W, D, k) combinations each run from a seeded
 space — odd sizes, tiny margins, D≈W, k≈min(H,W) — and checks the
-XLA moments op and the Pallas kernels (interpret mode) against the
-float64 brute-force oracle, forward and gradient.  Shapes here have
-caught alignment/margin bugs the fixed shapes missed.
+XLA moments op (forward, camera and projector gradients) against the
+float64 brute-force oracle and the fused kernel (interpret mode)
+against the XLA volume + head.  Shapes here have caught
+alignment/margin bugs the fixed shapes missed.
 """
 
 import jax
@@ -14,8 +15,10 @@ import numpy as np
 import pytest
 
 from custereomatching_tpu.ops import golden, zncc
-from custereomatching_tpu.ops.pallas_pipeline import pallas_stereo_pipeline
-from custereomatching_tpu.ops.pallas_zncc import stereo_matching_pallas
+from custereomatching_tpu.ops.fused import (
+    fused_disparity_maps,
+    fused_head_state,
+)
 from tests.np_oracle import zncc_brute
 
 RNG = np.random.default_rng(20260816)
@@ -26,19 +29,16 @@ for _ in range(6):
     # k=1 is excluded: with a 1x1 window the true moments are exactly
     # zero and the eps-regularized cost is pure fp-noise (FMA fusion of
     # sxy - mux*sy leaves +-1 ulp where the math cancels); the reference's
-    # two-pass CUDA has the same degeneracy.  The Pallas ops now REJECT
-    # k=1 at the API (pinned by test_zncc_op.py::test_pallas_rejects_k1);
-    # k=1 values are pinned by test_kernel_size_one on the XLA path.
+    # two-pass CUDA has the same degeneracy.  k=1 values are pinned by
+    # test_kernel_size_one on the XLA path.
     k = int(RNG.choice([3, 5, 7, 9, 15]))
     D = int(RNG.integers(0, min(W - 1, 24)))
-    hb = int(RNG.choice([8, 16, 24]))
-    dtb = int(RNG.choice([4, 8, 16]))
-    CASES.append((H, W, D, k, hb, dtb))
+    CASES.append((H, W, D, k))
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_backends_match_float64_oracle(case):
-    H, W, D, k, hb, dtb = case
+    H, W, D, k = case
     rng = np.random.default_rng(hash(case) % (2**32))
     cam = rng.uniform(size=(H, W)).astype(np.float32)
     proj = rng.uniform(size=(H, W)).astype(np.float32)
@@ -49,11 +49,6 @@ def test_backends_match_float64_oracle(case):
     np.testing.assert_allclose(got_xla, want, rtol=5e-4, atol=5e-5,
                                err_msg=f"xla {case}")
 
-    got_pl = np.asarray(stereo_matching_pallas(
-        jnp.asarray(cam), jnp.asarray(proj), D, k, 1e-8, True))
-    np.testing.assert_allclose(got_pl, want, rtol=5e-4, atol=5e-5,
-                               err_msg=f"pallas {case}")
-
     # Gradient with a random cotangent, vs jax.grad of the golden oracle.
     g = rng.normal(size=want.shape).astype(np.float32)
     want_grad = np.asarray(golden.zncc_camera_grad(
@@ -63,37 +58,34 @@ def test_backends_match_float64_oracle(case):
         return jnp.sum(fn(c) * jnp.asarray(g))
 
     got_grad = np.asarray(jax.grad(lambda c: loss(
-        lambda cc: stereo_matching_pallas(cc, jnp.asarray(proj), D, k,
-                                          1e-8, True), c))(jnp.asarray(cam)))
+        lambda cc: zncc.stereo_matching(cc, jnp.asarray(proj), D, k),
+        c))(jnp.asarray(cam)))
     scale = np.abs(want_grad).max() + 1e-6
     np.testing.assert_allclose(got_grad / scale, want_grad / scale,
                                rtol=1e-3, atol=5e-5,
-                               err_msg=f"pallas grad {case}")
+                               err_msg=f"xla grad {case}")
 
-    # Both-gradients variant: camera AND projector closed-form kernels
-    # vs golden autodiff (the projector half the reference never wrote).
+    # Both-gradients variant (the projector half the reference never
+    # wrote) vs golden autodiff.
     gcb, gpb = jax.grad(
         lambda c, p: loss(
-            lambda cc: stereo_matching_pallas(cc, p, D, k, 1e-8, True,
-                                              True), c),
+            lambda cc: zncc.stereo_matching_with_proj_grad(cc, p, D, k), c),
         argnums=(0, 1))(jnp.asarray(cam), jnp.asarray(proj))
     np.testing.assert_allclose(np.asarray(gcb) / scale, want_grad / scale,
                                rtol=1e-3, atol=5e-5,
-                               err_msg=f"pallas both-cam grad {case}")
+                               err_msg=f"both-grads cam {case}")
     want_pgrad = np.asarray(golden.zncc_projector_grad(
         jnp.asarray(cam), jnp.asarray(proj), jnp.asarray(g), D, k))
     pscale = np.abs(want_pgrad).max() + 1e-6
     np.testing.assert_allclose(np.asarray(gpb) / pscale,
                                want_pgrad / pscale,
                                rtol=1e-3, atol=5e-5,
-                               err_msg=f"pallas proj grad {case}")
+                               err_msg=f"both-grads proj {case}")
 
 
 @pytest.mark.parametrize("case", CASES[:3], ids=str)
 def test_fused_pipeline_random_shapes(case):
-    H, W, D, k, hb, dtb = case
-    if k == 1:
-        k = 3  # degenerate windows make every plane identical
+    H, W, D, k = case
     rng = np.random.default_rng(hash(case) % (2**31))
     cam = jnp.asarray(rng.uniform(size=(H, W)).astype(np.float32))
     proj = jnp.asarray(rng.uniform(size=(H, W)).astype(np.float32))
@@ -102,8 +94,12 @@ def test_fused_pipeline_random_shapes(case):
 
     cv = zncc.stereo_matching(cam, proj, D, k)
     want = extract_disparity(cv, num_disparities=D, threshold=0.6)
-    got = pallas_stereo_pipeline(cam, proj, D, k, 1e-8, 50.0, 0.6,
-                                 hb, dtb, True)
+    got = jax.tree_util.tree_map(
+        lambda x: x[0], fused_disparity_maps(
+            cam[None], proj[None], D, k, 1e-8, 50.0, 0.6, True))
+    st = fused_head_state(cam[None], proj[None], D, k, 1e-8, 50.0, True)
+    np.testing.assert_array_equal(np.asarray(st.am[0]) * np.asarray(got.mask),
+                                  np.asarray(got.disparity))
     np.testing.assert_array_equal(np.asarray(got.disparity),
                                   np.asarray(want.disparity),
                                   err_msg=f"hard {case}")

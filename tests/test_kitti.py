@@ -1,8 +1,7 @@
 """KITTI data path: uint16/256 GT convention, layout detection, eval.
 
 The reference consumes real captures with no loader (reference:
-examples/verify.py:137-142); BASELINE names "KITTI pairs" as a parity
-workload.  These tests pin the KITTI loader round-trip (including the
+examples/verify.py:137-142); KITTI pairs are a parity workload.  These tests pin the KITTI loader round-trip (including the
 native uint16 PNG decode) and the eval entry point on the checked-in
 KITTI-format fixture.
 """

@@ -1,7 +1,7 @@
 """Tests for the multi-host surface (parallel/multihost.py).
 
-Real N>=2-host runs need a pod slice; everything CPU-testable is covered
-here: single-process initialize semantics, global-mesh shape validation,
+Real multi-process runs need several hosts; everything CPU-testable is
+covered here: single-process initialize semantics, global-mesh shape validation,
 and the process-local batch-slice arithmetic (survey §5.8 — the subsystem
 has no reference counterpart, so these tests are its spec).
 """
@@ -19,7 +19,7 @@ from custereomatching_tpu.parallel.multihost import (
 
 
 def test_initialize_singleprocess_noop():
-    """On one process, failed auto-detection is swallowed (no cluster)."""
+    """One process needs no distributed runtime: a no-op."""
     initialize_multihost()  # must not raise
     assert jax.process_count() == 1
 

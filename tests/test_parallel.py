@@ -1,7 +1,7 @@
 """Sharded-pipeline parity tests on a virtual 8-device CPU mesh.
 
-The TPU-native analogue of a distributed "fake backend" (survey §4):
-conftest.py forces 8 virtual CPU devices, and these tests assert that the
+A distributed "fake backend" (survey §4): conftest.py forces 8 virtual
+CPU devices, and these tests assert that the
 mesh-sharded cost volume — halo exchange over 'space', batch over 'data'
 — is numerically identical to the single-device op, including the
 zero-pad semantics at true image borders that the halo exchange must
@@ -126,8 +126,8 @@ def test_optimize_camera_reduces_loss():
 
 
 def test_sharded_pallas_cost_volume_parity():
-    """The Pallas kernel inside shard_map (interpret mode) matches the
-    single-device XLA volume."""
+    """A "pallas_interpret" config inside shard_map builds the XLA volume
+    (only disparity maps use the kernel) and matches one device."""
     rng = np.random.default_rng(5)
     B, H, W, D, K = 2, 24, 40, 6, 5
     cam, proj = _random_batch(rng, B, H, W)
@@ -143,9 +143,9 @@ def test_sharded_pallas_cost_volume_parity():
 
 
 def test_sharded_fused_pipeline_parity_and_grad():
-    """Fused volume-free pipeline under (data, space) sharding: outputs
-    bit-match the single-device XLA head; gradients flow back through the
-    transposed halo exchange and the fused VJP."""
+    """Fused volume-free kernel under (data, space) sharding: outputs
+    match the single-device XLA head; the differentiable maps' gradients
+    flow back through the transposed halo exchange and the volume VJP."""
     from custereomatching_tpu.parallel import sharded_disparity_maps
 
     rng = np.random.default_rng(6)

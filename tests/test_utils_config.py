@@ -1,6 +1,5 @@
 """Utilities, config validation, and driver entry-point tests."""
 
-import os
 import time
 
 import jax
@@ -56,15 +55,13 @@ def test_stereo_config_validation(bad):
 
 
 def test_even_kernel_rejected_by_ops():
-    from custereomatching_tpu.ops import stereo_matching
-    from custereomatching_tpu.ops.pallas_zncc import (
-        pallas_cost_volume_banded_hdw)
+    from custereomatching_tpu.ops import fused_head_state, stereo_matching
 
     img = jnp.zeros((16, 16))
     with pytest.raises(ValueError):
         stereo_matching(img, img, 4, 6)
     with pytest.raises(ValueError):
-        pallas_cost_volume_banded_hdw(img, img, 4, 6)
+        fused_head_state(img[None], img[None], 4, 6, 1e-8, 50.0, True)
 
 
 def test_mesh_config():
@@ -73,8 +70,11 @@ def test_mesh_config():
 
 
 def test_roofline_model():
-    rl = zncc_roofline(375, 1242, 192, 15, materialize_volume=True)
-    rf = zncc_roofline(375, 1242, 192, 15, materialize_volume=False)
+    h100 = "NVIDIA H100 80GB HBM3"
+    rl = zncc_roofline(375, 1242, 192, 15, materialize_volume=True,
+                       device_kind=h100)
+    rf = zncc_roofline(375, 1242, 192, 15, materialize_volume=False,
+                       device_kind=h100)
     assert rl["bound_fps"] > 0 and rf["bound_fps"] > 0
     # Materializing the volume moves ~100x more bytes.
     assert rl["bytes_moved"] > 10 * rf["bytes_moved"]
@@ -130,203 +130,3 @@ def test_stereo_engine_bucketing():
     with pytest.raises(ValueError):
         engine.infer(np.zeros((100, 300), np.float32),
                      np.zeros((100, 300), np.float32))
-
-
-def test_pipeline_blocks_config():
-    from custereomatching_tpu.config import StereoConfig
-
-    cfg = StereoConfig(num_disparities=8, pipeline_blocks=(16, 8))
-    assert cfg.pipeline_blocks == (16, 8)
-    with pytest.raises(ValueError, match="pipeline_blocks"):
-        StereoConfig(num_disparities=8, pipeline_blocks=(16,))
-    with pytest.raises(ValueError, match="pipeline_blocks"):
-        StereoConfig(num_disparities=8, pipeline_blocks=(0, 8))
-
-
-def test_pipeline_blocks_plumb_through():
-    """Custom kernel tiles give identical results to the defaults."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from custereomatching_tpu.config import StereoConfig
-    from custereomatching_tpu.models import StereoMatcher
-
-    rng = np.random.default_rng(4)
-    cam = jnp.asarray(rng.random((2, 24, 40), dtype=np.float32))
-    proj = jnp.asarray(rng.random((2, 24, 40), dtype=np.float32))
-    base = dict(kernel_size=5, num_disparities=6,
-                backend="pallas_interpret")
-    a = StereoMatcher(StereoConfig(**base)).disparity_maps(cam, proj)
-    b = StereoMatcher(StereoConfig(**base, pipeline_blocks=(8, 4))
-                      ).disparity_maps(cam, proj)
-    np.testing.assert_array_equal(np.asarray(a.disparity),
-                                  np.asarray(b.disparity))
-    np.testing.assert_allclose(np.asarray(a.soft_disparity),
-                               np.asarray(b.soft_disparity),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_autotune_smoke():
-    """Autotune returns a compiling candidate and caches it."""
-    from custereomatching_tpu.ops import tuning
-
-    blocks = tuning.autotune_pipeline_blocks(
-        24, 40, 6, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert blocks in ((8, 8), (16, 8))
-    again = tuning.autotune_pipeline_blocks(
-        24, 40, 6, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert again == blocks
-    vb = tuning.autotune_volume_blocks(
-        24, 40, 6, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert vb in ((8, 8), (16, 8))
-    bb = tuning.autotune_trainable_bwd_blocks(
-        24, 40, 6, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert bb in (8, 16)
-
-
-def test_candidate_blocks_arithmetic():
-    """Candidates derive from shape/VMEM arithmetic: feasible, non-empty,
-    and responsive to the shape (wider images admit fewer tall tiles)."""
-    from custereomatching_tpu.ops import tuning
-
-    small = tuning.candidate_blocks("pipeline", 64, 128, 16, 9)
-    big = tuning.candidate_blocks("pipeline", 375, 1242, 192, 15)
-    assert small and big
-    assert all(hb % 8 == 0 for hb, _ in small + big)
-    # Narrow images admit taller tiles than KITTI-width ones.
-    assert max(hb for hb, _ in small) >= max(hb for hb, _ in big)
-    # Every candidate passes the kernel's own VMEM estimate.
-    for hb, dt in big:
-        assert tuning._pipeline_vmem(375, 1242, 192, 15, hb, dt) \
-            <= tuning._VMEM_BUDGET
-    vol = tuning.candidate_blocks("volume", 375, 1242, 192, 15)
-    assert (48, 8) in vol
-    # Trainable backward: dt pinned by the volume's declared planes
-    # (192 -> 208 planes, 16-divisible); row tiles never outgrow the
-    # forward's 48-row padded extent.
-    bwd = tuning.candidate_blocks("trainable_bwd", 375, 1242, 192, 15)
-    assert bwd and all(dt == 16 for _, dt in bwd)
-    assert all(-(-375 // hb) * hb <= 384 for hb, _ in bwd)
-    for hb, dt in bwd:
-        assert tuning._trainable_bwd_vmem(375, 1242, 192, 15, hb, dt) \
-            <= 30e6
-    # The effective production default (driver clamps the shipped 40 to
-    # 32 at KITTI height) must never be filtered out.
-    assert (32, 16) in bwd
-
-
-def test_autotune_disk_cache(tmp_path, monkeypatch):
-    from custereomatching_tpu.ops import tuning
-
-    monkeypatch.setenv("CUSTEREO_TUNE_CACHE", str(tmp_path / "tune.json"))
-    tuning._CACHE.clear()
-    blocks = tuning.autotune_pipeline_blocks(
-        24, 64, 8, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert os.path.exists(str(tmp_path / "tune.json"))
-    # New process simulation: clear the in-process cache; the disk cache
-    # must short-circuit the measurement.
-    tuning._CACHE.clear()
-    again = tuning.autotune_pipeline_blocks(
-        24, 64, 8, 5, candidates=[(8, 8), (16, 8)], interpret=True)
-    assert tuple(again) == tuple(blocks)
-
-
-def test_autotune_degraded_window_gate(tmp_path, monkeypatch):
-    """A winner measured inside a degraded device window stays in-process
-    only (VERDICT r3: one bad tuning run must not pin a garbage tile on
-    disk); healthy windows persist with the probe rate stamped, and
-    round-3 bare-list disk entries still load."""
-    import json as _json
-
-    from custereomatching_tpu.ops import tuning
-
-    path = tmp_path / "tune.json"
-    monkeypatch.setenv("CUSTEREO_TUNE_CACHE", str(path))
-    tuning._CACHE.clear()
-
-    def build(hb, dt):
-        return (lambda: jnp.zeros((1,))), ()
-
-    # Degraded window: measured, cached in-process, never persisted.
-    monkeypatch.setattr(tuning, "_probe_health",
-                        lambda: (False, 10.0e-12, 0.5e-12))
-    with pytest.warns(RuntimeWarning, match="degraded"):
-        best = tuning._tune(("t", 1), [(8, 8)], build, 2, probe=True)
-    assert best == (8, 8)
-    assert not path.exists()
-    assert tuning._tune(("t", 1), [(8, 8)], build, 2, probe=True) == (8, 8)
-
-    # Healthy window: persisted with probe metadata.
-    tuning._CACHE.clear()
-    monkeypatch.setattr(tuning, "_probe_health",
-                        lambda: (True, 0.5e-12, 0.5e-12))
-    assert tuning._tune(("t", 2), [(8, 8)], build, 2, probe=True) == (8, 8)
-    data = _json.loads(path.read_text())
-    (entry,) = data.values()
-    assert entry["blocks"] == [8, 8]
-    assert entry["probe_madd_ps"] == 0.5
-    assert entry["ref_madd_ps"] == 0.5
-
-    # Back-compat: a round-3 bare-list entry still resolves.
-    data[tuning._disk_key(("t", 3))] = [16, 8]
-    path.write_text(_json.dumps(data))
-    tuning._CACHE.clear()
-    assert tuning._tune(("t", 3), [], build, 0, probe=False) == (16, 8)
-
-
-def test_engine_autotune_per_bucket(monkeypatch):
-    """autotune=True gives each bucket its own tuned kernel tiles; the
-    tuned pipeline's outputs equal the default blocks' outputs."""
-    from custereomatching_tpu.models.engine import StereoEngine
-    from custereomatching_tpu.ops import tuning
-
-    calls = []
-
-    def fake_tune(h, w, D, k, **kw):
-        calls.append((h, w))
-        return (8, 8)
-
-    monkeypatch.setattr(tuning, "autotune_pipeline_blocks", fake_tune)
-    cfg = StereoConfig(kernel_size=5, num_disparities=8,
-                       backend="pallas_interpret")
-    eng = StereoEngine(cfg, buckets=[(16, 64), (32, 128)], autotune=True)
-    eng0 = StereoEngine(cfg, buckets=[(16, 64), (32, 128)])
-    rng = np.random.default_rng(0)
-    cam = rng.random((14, 60)).astype(np.float32)
-    proj = rng.random((14, 60)).astype(np.float32)
-    out = eng.infer(cam, proj)
-    out0 = eng0.infer(cam, proj)
-    assert calls == [(16, 64)]          # tuned lazily, per touched bucket
-    np.testing.assert_array_equal(out.disparity, out0.disparity)
-    np.testing.assert_allclose(out.soft_disparity, out0.soft_disparity,
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_trainable_bwd_block_rows_config():
-    """StereoConfig.trainable_bwd_block_rows reaches the fused trainable
-    path: gradients identical to the default tiling, bad values rejected."""
-    import pytest as _pytest
-
-    from custereomatching_tpu.models import StereoMatcher
-
-    with _pytest.raises(ValueError):
-        StereoConfig(trainable_bwd_block_rows=-8)
-    base = dict(kernel_size=5, num_disparities=6,
-                backend="pallas_interpret")
-    rng = np.random.default_rng(2)
-    cam = jnp.asarray(rng.random((1, 24, 40), dtype=np.float32))
-    proj = jnp.asarray(rng.random((1, 24, 40), dtype=np.float32))
-    tgt = jnp.zeros((1, 24, 40), jnp.float32)
-
-    def grad_for(cfg):
-        m = StereoMatcher(cfg)
-
-        def loss(c):
-            d = m.trainable_disparity_maps(c, proj)
-            return jnp.mean((d.soft_disparity - tgt) ** 2)
-
-        return np.asarray(jax.grad(loss)(cam))
-
-    g_def = grad_for(StereoConfig(**base))
-    g_tuned = grad_for(StereoConfig(**base, trainable_bwd_block_rows=16))
-    np.testing.assert_allclose(g_def, g_tuned, rtol=1e-5, atol=1e-7)

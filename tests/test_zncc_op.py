@@ -1,7 +1,7 @@
 """Production op (moments/box-filter formulation + closed-form VJP) vs the
 golden oracle.
 
-Covers the verify.py protocol (BASELINE configs 1-2): forward allclose and
+Covers the verify.py protocol: forward allclose and
 VJP allclose with the all-ones cotangent (examples/verify.py:68) plus
 random cotangents, in both all-pairs and banded modes.
 """
@@ -120,23 +120,6 @@ def test_kernel_size_one():
     cv = zncc.stereo_matching(cam, proj, 2, 1)
     expected = zncc.EPSILON / np.sqrt(zncc.EPSILON)
     np.testing.assert_allclose(np.asarray(cv), expected, rtol=1e-4)
-
-
-def test_pallas_rejects_k1():
-    # The Pallas kernels reject the degenerate k=1 case at the API
-    # (docs/PARITY.md): the closed-form backward cannot even be traced at
-    # p=0 and the values are pure eps artifacts.  XLA keeps k=1 support
-    # (test_kernel_size_one above).
-    from custereomatching_tpu.ops.pallas_pipeline import (
-        pallas_stereo_pipeline)
-    from custereomatching_tpu.ops.pallas_zncc import stereo_matching_pallas
-
-    cam, proj = _pair(H=8, W=16, seed=9)
-    with pytest.raises(ValueError, match="kernel_size"):
-        stereo_matching_pallas(cam, proj, 2, 1, zncc.EPSILON, True)
-    with pytest.raises(ValueError, match="kernel_size"):
-        pallas_stereo_pipeline(cam, proj, 2, 1, zncc.EPSILON, 50.0, 0.6,
-                               8, 8, True)
 
 
 def test_shape_validation():
